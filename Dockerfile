@@ -10,7 +10,7 @@ WORKDIR /app
 COPY setup.py README.md ./
 COPY rad_tpu ./rad_tpu
 COPY scripts ./scripts
-RUN pip install --no-cache-dir "jax[cpu]" requests && pip install --no-cache-dir -e .
+RUN pip install --no-cache-dir "jax[cpu]" && pip install --no-cache-dir -e .
 
 EXPOSE 8000
 # mount: -v /data/library.rad.npz:/data/index.npz -v /data/smiles.db:/data/smiles.db

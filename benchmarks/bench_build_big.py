@@ -1,9 +1,9 @@
-"""Single-chip probed build at ≥30M nodes (VERDICT r4 item 5).
+"""Single-card probed build at ≥30M nodes.
 
-The r5 build path makes this fit one chip: streamed scan+select never
-materializes the [n_pad, k] candidate tables (15 GB at 30M), and the
-bucketed symmetrization's working set is one destination group at a
-time. At M=8 the resident peak is ~12-14 GB of the v5e's ~15.5:
+Streamed scan+select never materializes the [n_pad, k] candidate tables
+(15 GB at 30M), and the bucketed symmetrization's working set is one
+destination group at a time. At M=8 the resident arrays are (arithmetic
+from the shapes):
 
     packed [30M, 32] u32            3.84 GB   (layer prefix upload)
     packed_cl (permuted copy)       3.84 GB   (scan layout, freed after)
@@ -55,13 +55,12 @@ def main(argv=None) -> int:
     ap.add_argument("--results", default="/tmp/build_big.jsonl")
     args = ap.parse_args(argv)
 
-    from rad_tpu.utils.launcher import ensure_supervised, device_warmup
-    ensure_supervised(marker_timeout=1200, retries=2, retry_sleep=120)
+    from rad_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import logging
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
-    device_warmup()
 
     import jax
     import jax.numpy as jnp
@@ -149,7 +148,7 @@ def main(argv=None) -> int:
         n_top = g.layer_sizes[g.max_level]
         state = dev.prime(state, dg, jnp.arange(n_top, dtype=jnp.int32),
                           table[:n_top])
-        # pre-warm the compile outside the timing window (ROUND5 gap
+        # pre-warm the compile outside the timing window (gap
         # decomposition: a cold first dispatch is ~40 s of compile)
         state = run(state, jnp.int32(args.traverse_budget), jnp.int32(1))
         np.asarray(state.n_steps)

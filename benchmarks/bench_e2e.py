@@ -1,5 +1,5 @@
 """One end-to-end artifact at scale: build → save → mmap-serve → traverse
-→ enrichment, on ONE graph (VERDICT r3 item 4).
+→ enrichment, on ONE graph.
 
 Every stage is the real production component, composed exactly as a user
 would: the subquadratic probed exact build (rad_tpu.build.exact), .npz
@@ -161,13 +161,12 @@ def main(argv=None) -> int:
     ap.add_argument("--host-batch", type=int, default=1024)
     args = ap.parse_args(argv)
 
-    from rad_tpu.utils.launcher import ensure_supervised, device_warmup
-    ensure_supervised(marker_timeout=300, retries=2, retry_sleep=120)
+    from rad_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import logging
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
-    device_warmup()
 
     import jax
     import jax.numpy as jnp
@@ -250,7 +249,7 @@ def main(argv=None) -> int:
             n_to_score = int(frac * args.n)
             # pre-warm: the first dispatch carries the remote compile
             # (~40 s) — r4's 9.1k/22.9k scored/s rows were ~94% compile
-            # inside the timing window (gap decomposition, ROUND5.md).
+            # inside the timing window.
             # One 1-step segment compiles + makes 1 step of progress;
             # timing starts after, on the same trajectory.
             state = run(state, jnp.int32(n_to_score), jnp.int32(1))
@@ -288,7 +287,7 @@ def main(argv=None) -> int:
         })
 
     # ----------------------- traverse + enrichment through the HOST
-    # scoring boundary (VERDICT r4 item 4): the reference's actual
+    # scoring boundary: the reference's actual
     # deployment semantics — a user host scoring_fn(smiles) in the loop
     # with SMILES looked up from a real SQLite store per batch
     # (/root/reference/rad/distributed_worker.py:296-308)

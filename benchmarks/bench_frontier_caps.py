@@ -3,7 +3,7 @@
 Runs the same 1M-node traversal (Tanimoto-to-target scorer, 10% budget) at
 several frontier capacities — from heavily undersized to the auto/lossless
 size — and reports drops + fraction of the library's true top-N recovered.
-One JSON line; table recorded in BENCHMARKS.md.
+One JSON line.
 """
 
 from __future__ import annotations

@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     ap.add_argument("--builder", default="native",
                     choices=["native", "host", "device", "exact"],
                     help="sub-build backend for the partitioned path "
-                         "('exact' = the MXU all-pairs builder: the "
+                         "('exact' = the all-pairs builder: the "
                          "per-chip shard build at pod scale)")
     ap.add_argument("--skip-mono", action="store_true",
                     help="skip the monolithic baseline (at 1M the native "

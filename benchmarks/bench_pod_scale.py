@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Billion-node pod traversal on the virtual CPU mesh (BASELINE config 5).
 
-BASELINE.json's final staged config is "billion-scale graph sharded
-across a v5e-8 pod over ICI" (the reference's proof point is 2B molecules
+BASELINE.json's final staged config is a billion-scale graph sharded
+across several cards (the reference's proof point is 2B molecules
 behind one service, reference index.html:568-580). Pod hardware is not
 available in this container, so this benchmark executes the REAL pod
 program — `make_sharded_step_full`: graph AND state row-sharded,
@@ -17,11 +17,9 @@ What it validates that the toy dryrun cannot:
   correct progress (scored-bitmap population == n_scored, monotone);
 - per-shard traffic stays balanced at scale (TrafficMeter).
 
-Throughput on virtual CPU devices is NOT a TPU prediction — XLA:CPU on
-one shared core serializes what ICI would parallelize. The TPU-rate
-estimate for this program is the single-chip engine rate × collective
-efficiency (docs/SCALING.md); the number reported here is recorded only
-to show the run is real.
+Throughput on virtual CPU devices predicts nothing about cards — XLA:CPU
+on shared cores serializes what NVLink would parallelize; the number
+reported here is recorded only to show the run is real.
 
     python benchmarks/bench_pod_scale.py --n 1000000000 --budget 200000
 

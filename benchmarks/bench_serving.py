@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Serve a 100M+-node mmap'd graph over HTTP (VERDICT r2 item #7).
+"""Serve a 100M+-node mmap'd graph over HTTP.
 
 The reference's proof point is 2B molecules served from one CPU server via
 a memory-mapped vector-free index (reference index.html:568-580;

@@ -74,15 +74,6 @@ def main(argv=None) -> int:
     ap.add_argument("--narrow-width", type=int, default=None,
                     help="fused_run narrow_width (exhaustive-tail trim; "
                          "bit-identical results)")
-    ap.add_argument("--fused-candidates", action="store_true",
-                    help="route the [B*M0] candidate chain through the "
-                         "fused Pallas kernels (traverse.pallas_ops; "
-                         "bit-identical — VERDICT r3 item 5 measurement)")
-    ap.add_argument("--ab", action="store_true",
-                    help="measure BOTH candidate-chain arms (XLA and "
-                         "fused Pallas) in one process: shared graph, "
-                         "shared session, one JSON with both rates and "
-                         "a scored-set equality check")
     ap.add_argument("--synthetic-graph", action="store_true",
                     help="skip HNSW construction; use a random layered "
                          "graph of the same shape (engine-throughput-only "
@@ -152,14 +143,13 @@ def main(argv=None) -> int:
                            head_capacity=args.head)
         return dev.prime(s, dg, ids, seed_scores)
 
-    def measure(fused: bool):
-        log(f"compiling fused_run (fused_candidates={fused}) ...")
+    def measure():
+        log("compiling fused_run ...")
         state = fresh_state()
         t0 = time.perf_counter()
         state = dev.fused_run(state, dg, packed, pops, target, t_pop,
                               jnp.int32(n_to_score), batch=args.batch,
-                              narrow_width=args.narrow_width,
-                              fused_candidates=fused)
+                              narrow_width=args.narrow_width)
         log(f"first run: {time.perf_counter() - t0:.1f}s, scored "
             f"{int(state.n_scored)}, dropped {int(state.n_dropped)}")
         best = np.inf
@@ -169,8 +159,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             state = dev.fused_run(state, dg, packed, pops, target, t_pop,
                                   jnp.int32(n_to_score), batch=args.batch,
-                                  narrow_width=args.narrow_width,
-                                  fused_candidates=fused)
+                                  narrow_width=args.narrow_width)
             scored = int(state.n_scored)  # forces completion
             dt = time.perf_counter() - t0
             log(f"run {i}: {dt*1e3:.0f} ms, {scored} scored, "
@@ -178,33 +167,13 @@ def main(argv=None) -> int:
             best = min(best, dt)
         return scored, best, state
 
-    if args.ab:
-        scored_x, best_x, st_x = measure(False)
-        scored_f, best_f, st_f = measure(True)
-        same = (scored_x == scored_f and np.array_equal(
-            np.asarray(st_x.scored), np.asarray(st_f.scored)))
-        print(json.dumps({
-            "metric": "traversal_nodes_scored_per_sec_ab",
-            "value": scored_f / best_f,
-            "unit": "nodes/s",
-            "xla_nodes_per_s": scored_x / best_x,
-            "fused_nodes_per_s": scored_f / best_f,
-            "speedup": best_x / best_f,
-            "scored_sets_identical": bool(same),
-            "n": args.n,
-            "batch": args.batch,
-            "narrow_width": args.narrow_width,
-        }))
-        return 0
-
-    scored, best, _ = measure(args.fused_candidates)
+    scored, best, _ = measure()
     print(json.dumps({
         "metric": "traversal_nodes_scored_per_sec",
         "value": scored / best,
         "unit": "nodes/s",
         "n": args.n,
         "batch": args.batch,
-        "fused_candidates": args.fused_candidates,
         "build_nodes_per_sec": args.n / t_build,
     }))
     return 0

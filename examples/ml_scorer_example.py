@@ -2,8 +2,8 @@
 """Traversal under a learned (MLP) scoring model, fully on-device.
 
 The reference screens billion-scale libraries with ML scorers (Chemprop,
-reference README.md:206) by calling the model from Python workers. On TPU
-the model can live *inside* the traversal program: here a small MLP over
+reference README.md:206) by calling the model from Python workers. On the
+device the model can live *inside* the traversal program: here a small MLP over
 unpacked fingerprint bits is fitted to DOCK-like scores on a labeled subset
 (the "already-docked" molecules), then the entire best-first sweep — pop,
 gather, MLP inference, frontier update — compiles into one program via

@@ -1,4 +1,4 @@
-"""rad_tpu — a TPU-native virtual-screening framework.
+"""rad_tpu — a virtual-screening framework for the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of keiserlab/rad
 (reference layout documented in SURVEY.md): an HNSW graph over packed binary
@@ -7,10 +7,11 @@ user-supplied SMILES scoring function so only a small, promising fraction of
 an ultra-large chemical library is ever scored.
 
 Where the reference pairs a C++ HNSW core (usearch fork,
-/root/reference/.gitmodules:1-3) with Redis-coordinated Python workers
-(/root/reference/rad/coordination_service.py), this framework keeps the graph
-and all traversal state device-resident as JAX arrays: a popcount/MXU Tanimoto
-kernel over an HBM-resident packed fingerprint matrix, padded per-layer
+reference .gitmodules:1-3) with Redis-coordinated Python workers
+(reference rad/coordination_service.py), this framework keeps the graph
+and all traversal state device-resident as JAX arrays: a popcount/int8
+tensor-core Tanimoto kernel over a device-resident packed fingerprint matrix,
+padded per-layer
 adjacency tables, batched on-device construction and beam search, and a jitted
 best-first traversal step whose atomicity comes from being a single compiled
 program rather than Redis Lua scripts.

@@ -72,7 +72,7 @@ def create_remote_traverser(hnsw_service_url: str,
 def create_pod_traverser(hnsw, scoring_fn: Callable[[str], float],
                          mesh=None, n_devices: int | None = None,
                          **kwargs) -> RADTraverser:
-    """Graph sharded across a TPU mesh, host scoring pipelined through the
+    """Graph sharded across a device mesh, host scoring pipelined through the
     sharded expand/integrate halves (PodTraverser under the RADTraverser
     lifecycle) — the deployment shape for >50M-molecule docking campaigns.
     """

@@ -137,25 +137,22 @@ class HNSWIndex:
                       expansion_add=self.expansion_add, ndim=self.ndim,
                       seed=self.seed)
         if backend == "auto":
-            # On a TPU at <=2M nodes, the MXU all-pairs builder wins
-            # (8.9k nodes/s vs 6.3k native at 100k, recall identical —
-            # BENCHMARKS.md build table). Otherwise the native C++
-            # builder (exact reference semantics, host-speed) when the
-            # toolchain allows; else the numpy reference builder. The
-            # batched JAX beam builder stays opt-in (backend="device").
-            import jax
+            # The native C++ builder (exact reference semantics, all host
+            # cores) when the toolchain allows; else the numpy reference
+            # builder. The exact all-pairs builder is faster on a GPU but
+            # its graphs search with far lower recall on libraries of
+            # analog families (PERF.md), so it stays opt-in
+            # (backend="exact"), as does the batched beam builder
+            # (backend="device").
             from rad_tpu.native import native_available
-            if (jax.default_backend() == "tpu"
-                    and len(keys) <= 2_000_000):
-                backend = "exact"
-            else:
-                backend = "native" if native_available() else "host"
+            backend = "native" if native_available() else "host"
         if backend == "device":
             from rad_tpu.build.device import build_hnsw_device
             self._graph = build_hnsw_device(fps, **common, **kwargs)
         elif backend == "exact":
-            # MXU all-pairs construction (rad_tpu.build.exact) — the fast
-            # accelerator path at <=few-million-node scale
+            # all-pairs construction on the tensor cores
+            # (rad_tpu.build.exact) — the fast accelerator path at
+            # <=few-million-node scale
             from rad_tpu.build.exact import build_hnsw_exact
             logger.info(
                 "build backend=exact: expansion_add=%d is ignored (exact "

@@ -5,7 +5,7 @@ Mirrors the reference API exactly (rad/traverser.py:28-383):
 get_molecules()/get_best_molecules() → shutdown()``, with the same
 deployment modes (reference rad/traverser.py:31-35, README.md:113-140):
 
-* ``local`` — graph + traversal state device-resident; the TPU-native
+* ``local`` — graph + traversal state device-resident; the accelerator
   jitted engine (rad_tpu.traverse.device) runs the sweep. No Redis, no
   child processes: atomicity is by compiled-program construction.
 * ``distributed`` — the host coordination engine with N scoring workers
@@ -187,7 +187,7 @@ class RADTraverser:
         self._pool: Optional[WorkerPool] = None
 
         if engine == "pod":
-            # graph sharded over the TPU mesh, host scoring pipelined
+            # graph sharded over the device mesh, host scoring pipelined
             # through the sharded expand/integrate halves
             from rad_tpu.parallel.pod import PodTraverser
             self._device_engine = PodTraverser(

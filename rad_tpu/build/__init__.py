@@ -8,7 +8,7 @@ from rad_tpu.build.reference import build_hnsw
 
 def build_hnsw_exact(*args, **kwargs):
     """Lazy re-export of :func:`rad_tpu.build.exact.build_hnsw_exact`
-    (the MXU all-pairs builder; ``probes=`` for the subquadratic
+    (the tensor-core all-pairs builder; ``probes=`` for the subquadratic
     cluster-probed candidate stage at >=1M nodes)."""
     from rad_tpu.build.exact import build_hnsw_exact as _b
     return _b(*args, **kwargs)

@@ -1,9 +1,9 @@
 """Batched on-device HNSW construction (JAX/XLA).
 
-The TPU rethink of usearch's C++ insert loop (SURVEY.md §7 hard part #1).
+The accelerator rethink of usearch's C++ insert loop (SURVEY.md §7 hard part #1).
 The reference inserts one vector at a time — greedy descent, an
 ``expansion_add``-wide beam, heuristic pruning, bidirectional relinking —
-under fine-grained locks. On TPU the same algorithm is reorganized around
+under fine-grained locks. On a device the same algorithm is reorganized around
 batches and static shapes:
 
 1. **Levels up front** — levels are sampled for the whole library and nodes
@@ -12,7 +12,7 @@ batches and static shapes:
 2. **Batched forward search** — all B nodes of a batch run the greedy
    descent + per-layer beam *in parallel* against the already-built prefix
    (a mask hides ids ≥ batch start). One jitted ``insert_batch`` program per
-   batch; XLA sees only gathers, VPU popcounts, sorts and masked top-ks.
+   batch; XLA sees only gathers, popcounts, sorts and masked top-ks.
 3. **Vectorized neighbor-selection heuristic** — the diversity rule
    (candidate kept iff closer to the query than to every kept candidate,
    Algorithm 4 of the HNSW paper) runs as a masked scan over the top
@@ -27,7 +27,7 @@ batches and static shapes:
 5. **Intra-batch stitch** — nodes of one batch cannot see each other during
    the forward search (the prefix mask), which would lose locality that the
    sequential algorithm has. A layer-0 stitch pass computes the batch's
-   B×B distance block (one MXU-sized popcount block) and distance-merges
+   B×B distance block (one popcount block) and distance-merges
    each node's nearest in-batch peers into its row, both directions.
 
 Builds are deterministic given (fingerprints, seed, batch_size).
@@ -166,16 +166,16 @@ def _beam_search_batch(packed, pops, adj_l, q_ids, ep_ids, ep_ds,
 
 
 def _select_neighbors(packed, pops, q_ids, cand_d, cand_id, m: int,
-                      heuristic_k: int, active, mxu_pairs: bool = False):
+                      heuristic_k: int, active, int8_pairs: bool = False):
     """Vectorized HNSW neighbor-selection heuristic with backfill.
 
     cand_d/cand_id: [B, K] ascending. Returns sel_ids [B, m] (-1 padded),
     in candidate order (matches the sequential heuristic's output order).
 
-    ``mxu_pairs``: compute the [B, kh, kh] pairwise-intersection block as
+    ``int8_pairs``: compute the [B, kh, kh] pairwise-intersection block as
     a batched int8 matmul over bit-unpacked candidate rows (exact — 0/1
-    dots) instead of the SWAR popcount broadcast; same values, rides the
-    MXU. Used by the exact builder's selection stage.
+    dots) instead of the SWAR popcount broadcast; same values, on the
+    tensor cores. Used by the exact builder's selection stage.
     """
     b, k = cand_d.shape
     kh = min(heuristic_k, k)
@@ -186,8 +186,8 @@ def _select_neighbors(packed, pops, q_ids, cand_d, cand_id, m: int,
     # pairwise distances among the top-kh candidates
     safe = jnp.maximum(top_i, 0)
     rows = packed[safe]                               # [B, kh, W]
-    if mxu_pairs:
-        from rad_tpu.fp.kernels import unpack_bitmajor
+    if int8_pairs:
+        from rad_tpu.fp.tanimoto import unpack_bitmajor
         bits = unpack_bitmajor(rows, jnp.int8)        # [B, kh, d]
         inter = jax.lax.dot_general(
             bits, bits,

@@ -29,7 +29,7 @@ unless the diversity heuristic prefers a cross-shard one.
 Reference parity note: usearch builds one monolithic index on one host
 (reference README.md:58; examples/DUDEZ_example.ipynb:192). This module
 exists because a 2B-molecule build cannot — partitioned construction is the
-TPU-pod analogue of "add more build machines".
+multi-card analogue of "add more build machines".
 """
 
 from __future__ import annotations
@@ -211,8 +211,8 @@ def build_hnsw_partitioned(
 
     n_shards:   number of partitions (round-robin over input rows).
     builder:    'auto' (native C++ if available, else host), 'host',
-                'native', 'device', 'exact' (the MXU all-pairs builder —
-                the fastest per-shard choice on a TPU; its O(shard²)
+                'native', 'device', 'exact' (the all-pairs builder —
+                the accelerator's per-shard choice; its O(shard²)
                 distances are exactly the regime sharding creates), or a
                 callable with build_hnsw's kwargs — runs once per shard.
                 On a pod, map shards onto chips per-process.

@@ -11,7 +11,7 @@ front* and internal ids are assigned in descending-level order, so layer ``l``
 is exactly the id range ``[0, N_l)`` (see rad_tpu.graph.storage). This is
 possible because virtual-screening libraries are static — the whole library is
 known at build time — and it is what makes the adjacency tables dense and
-TPU-gather-friendly.
+gather-friendly on a device.
 
 This builder is the correctness oracle for the batched on-device builder
 (rad_tpu.build.device) and is itself fast enough for ~10^5-molecule libraries;
@@ -166,7 +166,7 @@ def build_hnsw(
     extension: before neighbor selection, the beam's candidate set is
     augmented with the candidates' own neighbors (re-scored against the
     inserted node). Helps link quality in low-margin regimes (uniform
-    random bits — the distance-concentration pathology in BENCHMARKS.md);
+    random bits — the distance-concentration pathology);
     off by default to match usearch behavior.
     """
     packed = np.ascontiguousarray(packed, dtype=np.uint32)

@@ -2,7 +2,7 @@
 
 Provides real molecular structures (valid SMILES over scaffolds x
 substituents, all parseable by rad_tpu.chem.parse_smiles) for the
-real-chemistry enrichment validation (VERDICT r2 item #6): the DUDE-Z
+real-chemistry enrichment validation: the DUDE-Z
 protocol needs (a) a library of structures, (b) per-molecule docking-like
 scores, (c) fingerprints of the structures
 (/root/reference/examples/DUDEZ_example.ipynb:92-118, 359-408). With no

@@ -1,7 +1,7 @@
 """SMILES parser + Morgan (ECFP) circular fingerprints, no dependencies.
 
 Replaces the character-n-gram proxy fingerprinter for the real-chemistry
-validation path (VERDICT r2 item #6). The reference pipeline is RDKit
+validation path. The reference pipeline is RDKit
 ``GetMorganFingerprintAsBitVect(mol, 2, 1024)`` + ``np.packbits``
 (/root/reference/examples/DUDEZ_example.ipynb:92-118); this module
 implements the same algorithm family from the primary sources:

@@ -1,8 +1,9 @@
 """Packed binary fingerprints and Tanimoto distance (the metric layer).
 
-TPU-native replacement for usearch's b1-packed storage + Tanimoto popcount
-metric (reference call sites: /root/reference/README.md:47-53,
-examples/DUDEZ_example.ipynb:92-118).
+The accelerator's replacement for usearch's b1-packed storage + Tanimoto
+popcount metric (reference call sites: README.md:47-53,
+examples/DUDEZ_example.ipynb:92-118). :mod:`rad_tpu.fp.backend` decides
+which implementation serves a platform.
 """
 
 from rad_tpu.fp.pack import (
@@ -31,18 +32,4 @@ __all__ = [
     "tanimoto_distance",
     "tanimoto_matrix",
     "bruteforce_topk",
-    "tanimoto_matrix_pallas",
-    "tanimoto_nn_pallas",
-    "tanimoto_bucketmin_pallas",
-    "decode_bucket_keys",
 ]
-
-
-def __getattr__(name):
-    # pallas kernels import lazily (they pull in pallas machinery)
-    if name in ("tanimoto_matrix_pallas", "tanimoto_nn_pallas",
-                "tanimoto_bucketmin_pallas", "decode_bucket_keys"):
-        from rad_tpu.fp import kernels
-
-        return getattr(kernels, name)
-    raise AttributeError(f"module 'rad_tpu.fp' has no attribute {name!r}")

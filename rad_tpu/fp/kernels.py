@@ -1,34 +1,23 @@
-"""Pallas TPU kernels for packed-fingerprint Tanimoto distance.
+"""Pallas-Triton kernel: the exact builder's fused Tanimoto bucket-min.
 
-The hot op of the framework (SURVEY.md §7 hard part #2). The XLA path
-(rad_tpu.fp.tanimoto.tanimoto_matrix_mxu) must materialize the unpacked
-``[N, d]`` bf16 database in HBM — 16× the packed footprint. These kernels
-keep HBM traffic at the packed representation and unpack *inside* VMEM,
-right before the MXU dot:
+The exact builder's hot loop (:mod:`rad_tpu.build.exact`) reduces every
+``[q_block, col_block]`` distance block to one winner per ``bucket``
+columns. In plain XLA (:func:`rad_tpu.fp.tanimoto.bucket_keys` over a
+similarity block) the block's int32 intersections are written to device
+memory and read back by the epilogue and the reduction. This kernel keeps
+them on chip:
 
-    HBM (packed 128 B/row) ──DMA──> VMEM ──VPU unpack──> bf16 tile ──MXU──>
-    inter = q·dbᵀ;  dist = 1 − inter / (|q| + |db| − inter)
+* operands are the bit-unpacked 0/1 rows as int8
+  (:func:`rad_tpu.fp.tanimoto.unpack_bitmajor`); each program walks the
+  feature axis in ``BK``-wide steps, each one ``int8 x int8 -> int32``
+  product on the tensor cores, exact for 0/1 values;
+* the epilogue divides exactly, packs similarity and in-bucket index into
+  an int32 key, and takes the bucket max, so only ``BN / bucket`` keys per
+  query row reach device memory.
 
-Performance-critical choices:
-  * the packed block is viewed as **bytes** ``[NT, W*4] uint8`` so the
-    unpack runs on full 128-lane registers (a uint32 view leaves 3/4 of the
-    lanes idle for 1024-bit fingerprints);
-  * the unpacked feature order is **bit-major permuted**
-    (``out[:, b*(W*4) + byte] = (x[:, byte] >> b) & 1``) — each of the 8
-    shift-mask steps writes one contiguous full-width slice. Dot products
-    are invariant to any fixed feature permutation, so the query side is
-    unpacked with the same permutation (:func:`unpack_bitmajor`);
-  * the grid is ``(n_tiles, q_tiles)`` with q innermost, and the unpacked
-    db tile lives in scratch — each database block is unpacked **once** and
-    reused for every query tile.
-
-Two entry points:
-  * :func:`tanimoto_matrix_pallas` — full ``[Q, N]`` distance block;
-  * :func:`tanimoto_nn_pallas` — running min+argmin over the N axis
-    (1-NN without ever writing the Q×N matrix to HBM).
-
-Both validate against the SWAR reference on CPU via ``interpret=True``
-(tests/test_kernels.py) and run compiled on TPU.
+Programs are independent (no sum is carried between grid steps), so the
+grid fills the card's SMs in any order. Keys are bit-equal to
+:func:`rad_tpu.fp.tanimoto.bucket_keys` over IEEE-rounded similarities.
 """
 
 from __future__ import annotations
@@ -38,389 +27,128 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from rad_tpu.fp.pack import popcount_rows
+from rad_tpu.fp.tanimoto import unpack_bitmajor
 
-__all__ = ["tanimoto_matrix_pallas", "tanimoto_nn_pallas",
-           "tanimoto_bucketmin_pallas", "decode_bucket_keys",
-           "unpack_bitmajor"]
+__all__ = ["tanimoto_bucketmin"]
 
+# Tile sizes (powers of two, as Triton requires) and launch shape, the
+# fastest of a sweep on the H100 (PERF.md). Three pipeline stages of int8
+# operand tiles take 3 * (128 + 128) * 128 B = 96 KB of the 227 KB of
+# shared memory; a 4096 x 8192 block is 2048 programs for 132 SMs.
+BQ = 128
+BN = 128
+BK = 128
+NUM_WARPS = 4
+NUM_STAGES = 3
+MAX_WORDS = 64
 
-def unpack_bitmajor(packed: jnp.ndarray, dtype=jnp.bfloat16) -> jnp.ndarray:
-    """Unpack ``[..., W] uint32`` → ``[..., W*32]`` 0/1 in bit-major order.
-
-    Feature ``b * (W*4) + byte`` is bit ``b`` of byte ``byte`` — the
-    permutation the kernels' in-VMEM unpack produces. Any fixed permutation
-    leaves dot products (and hence Tanimoto) unchanged.
-    """
-    *lead, w = packed.shape
-    as_bytes = jax.lax.bitcast_convert_type(
-        packed.astype(jnp.uint32), jnp.uint8).reshape(*lead, w * 4)
-    shifts = jnp.arange(8, dtype=jnp.uint8)
-    bits = (as_bytes[..., None, :] >> shifts[:, None]) & jnp.uint8(1)
-    return bits.reshape(*lead, 8 * w * 4).astype(dtype)
-
-
-def _unpack_block_bytes(db_bytes_ref, scratch, nbytes: int):
-    """VPU unpack of [NT, nbytes] uint8 → [NT, 8*nbytes] bit-major 0/1.
-
-    Output dtype follows the scratch buffer: int8 for the 2×-peak integer
-    MXU path (exact — 0/1 dots accumulate in int32), bf16 otherwise."""
-    blk = db_bytes_ref[:, :].astype(jnp.int32)          # [NT, nbytes]
-    out_dtype = scratch.dtype
-    for b in range(8):
-        bits = (blk >> b) & 1
-        scratch[:, b * nbytes:(b + 1) * nbytes] = bits.astype(out_dtype)
-
-
-def _tanimoto_block(q_bits, q_pops, scratch, db_pops_t):
-    acc = jnp.int32 if scratch.dtype == jnp.int8 else jnp.float32
-    inter = jax.lax.dot_general(
-        q_bits, scratch[:, :],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=acc).astype(jnp.float32)  # [QT, NT]
-    union = q_pops + db_pops_t - inter
-    sim = jnp.where(union > 0, inter / jnp.maximum(union, 1.0), 1.0)
-    return 1.0 - sim
+# f32 a / b rounded to nearest, for the integer operands 0 <= a <= b here.
+# Triton lowers "/" to the approximate div.full.f32 (up to 2 ulp off);
+# PTX's div.rn.f32 is exact but runs its general slow-path checks. This
+# sequence is an approximate reciprocal, a quotient, its exact residual
+# (the FMA is exact because the residual is tiny) and one correction. It
+# equals IEEE division for every pair with b <= 4096 (all unions of
+# fingerprints up to 2048 bits), checked exhaustively on the card
+# (tests/test_kernels.py::test_div_rn_exhaustive_on_gpu).
+_DIV_RN_ASM = """{
+.reg .f32 r, q, e, nq;
+rcp.approx.ftz.f32 r, $2;
+mul.rn.f32 q, $1, r;
+neg.f32 nq, q;
+fma.rn.f32 e, nq, $2, $1;
+fma.rn.f32 $0, e, r, q;
+}"""
 
 
-def _matrix_kernel(q_bits_ref, q_pops_ref, db_ref, db_pops_ref, out_ref,
-                   scratch, *, nbytes: int):
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        _unpack_block_bytes(db_ref, scratch, nbytes)
+def _div_rn(x, y, interpret: bool):
+    """f32 ``x / y`` rounded to nearest, as XLA on the CPU and NumPy divide
+    (the interpreter runs on the host, whose division is already IEEE)."""
+    if interpret:
+        return x / y
+    [out] = plt.elementwise_inline_asm(
+        _DIV_RN_ASM, args=[x, y], constraints="=f,f,f", pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, jnp.float32)])
+    return out
 
-    out_ref[:, :] = _tanimoto_block(
-        q_bits_ref[:, :], q_pops_ref[:, :], scratch, db_pops_ref[:, :].T)
+
+def _bucketmin_kernel(q_ref, qpop_ref, db_ref, dbpop_ref, out_ref, *,
+                      bucket: int, bk: int, interpret: bool):
+    bq, d = q_ref.shape
+    bn = db_ref.shape[0]
+
+    def step(i, acc):
+        a = q_ref[:, pl.ds(i * bk, bk)]
+        b = db_ref[:, pl.ds(i * bk, bk)]
+        return acc + pl.dot(a, b, trans_b=True)
+
+    inter = jax.lax.fori_loop(0, d // bk, step,
+                              jnp.zeros((bq, bn), jnp.int32))
+    inter = inter.astype(jnp.float32)                # exact: <= n_bits
+    union = qpop_ref[...][:, None] + dbpop_ref[...][None, :] - inter
+    sim = jnp.where(union > 0,
+                    _div_rn(inter, jnp.maximum(union, 1.0), interpret),
+                    1.0)
+    bits = jax.lax.bitcast_convert_type(sim, jnp.int32)
+    local = jax.lax.broadcasted_iota(jnp.int32, (bq, bn), 1) & (bucket - 1)
+    keys = (bits & ~(bucket - 1)) | local
+    out_ref[...] = jnp.max(keys.reshape(bq, bn // bucket, bucket), axis=2)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("q_tile", "n_tile", "interpret",
-                                    "compute_dtype"))
-def tanimoto_matrix_pallas(q_packed: jnp.ndarray, db_packed: jnp.ndarray,
-                           q_tile: int = 512, n_tile: int = 1024,
-                           interpret: bool = False,
-                           compute_dtype=jnp.int8) -> jnp.ndarray:
-    """Full [Q, N] Tanimoto distance matrix with in-kernel unpack.
+@functools.partial(jax.jit, static_argnames=("bucket", "interpret"))
+def tanimoto_bucketmin(q_packed: jnp.ndarray, db_packed: jnp.ndarray,
+                       bucket: int = 64,
+                       interpret: bool = False) -> jnp.ndarray:
+    """Winner of every ``bucket`` database rows for every query, as keys.
 
-    Q must divide by ``q_tile`` and N by ``n_tile`` (pad with zero rows and
-    slice — zero rows are distance 1 to everything non-empty).
-    ``compute_dtype=jnp.int8`` rides the 2×-peak integer MXU (exact);
-    ``jnp.bfloat16`` is the fallback.
+    Returns int32 ``keys [Q, N / bucket]``, equal to
+    ``bucket_keys(tanimoto_similarity(q, db), bucket)`` with IEEE division;
+    decode with :func:`rad_tpu.fp.tanimoto.decode_bucket_keys`. The
+    distance matrix never reaches device memory. ``Q`` must be a multiple
+    of ``min(Q, BQ)``, ``N`` of ``min(N, BN)``, both tiles powers of two
+    (Triton's rule), and ``bucket`` a power of two that divides
+    ``min(N, BN)``.
+
+    ``interpret=True`` runs the Pallas interpreter (tests on the CPU);
+    without it the kernel compiles through Triton and needs a GPU.
     """
     q, w = q_packed.shape
     n, _ = db_packed.shape
-    assert q % q_tile == 0 and n % n_tile == 0, (q, n, q_tile, n_tile)
-    nbytes = w * 4
-    d = w * 32
-    q_bits = unpack_bitmajor(q_packed, compute_dtype)
-    q_pops = popcount_rows(q_packed).astype(jnp.float32)[:, None]
-    db_pops = popcount_rows(db_packed).astype(jnp.float32)[:, None]
-    db_bytes = jax.lax.bitcast_convert_type(
-        db_packed, jnp.uint8).reshape(n, nbytes)
-
-    grid = (n // n_tile, q // q_tile)
-    kernel = functools.partial(_matrix_kernel, nbytes=nbytes)
+    if w > MAX_WORDS:
+        raise ValueError(f"bucketmin: {32 * w}-bit fingerprints exceed the "
+                         f"{32 * MAX_WORDS} bits its division is exact for")
+    bq, bn = min(BQ, q), min(BN, n)
+    if (q % bq or n % bn or bn % bucket or bucket & (bucket - 1)
+            or bq & (bq - 1) or bn & (bn - 1)):
+        raise ValueError(f"bucketmin: Q={q} N={n} bucket={bucket} do not "
+                         f"tile by ({bq}, {bn})")
+    # the feature axis is zero-padded to a power of two of at least 32
+    # (the tensor cores' least int8 depth); zero bits change no count
+    d = max(32, 1 << (32 * w - 1).bit_length())
+    bk = min(BK, d)
+    pad = (d - 32 * w) // 32
+    if pad:
+        q_packed = jnp.pad(q_packed, ((0, 0), (0, pad)))
+        db_packed = jnp.pad(db_packed, ((0, 0), (0, pad)))
+    kernel = functools.partial(_bucketmin_kernel, bucket=bucket, bk=bk,
+                               interpret=interpret)
     return pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(q // bq, n // bn),
         in_specs=[
-            pl.BlockSpec((q_tile, d), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((q_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, nbytes), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((bq, d), lambda i, j: (i, 0)),
+            pl.BlockSpec((bq,), lambda i, j: (i,)),
+            pl.BlockSpec((bn, d), lambda i, j: (j, 0)),
+            pl.BlockSpec((bn,), lambda i, j: (j,)),
         ],
-        out_specs=pl.BlockSpec((q_tile, n_tile), lambda i, j: (j, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((q, n), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((n_tile, d), compute_dtype)],
+        out_specs=pl.BlockSpec((bq, bn // bucket), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((q, n // bucket), jnp.int32),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
-    )(q_bits, q_pops, db_bytes, db_pops)
-
-
-def _bucketmin_kernel(q_bits_ref, q_pops_ref, db_ref, db_pops_ref,
-                      out_ref, scratch, *, nbytes: int, n_tile: int,
-                      bucket: int, q_tile: int, approx: bool):
-    """One packed winner per ``bucket`` db rows — in-VMEM PartialReduce.
-
-    The r3 builder profile (ROUND3.md item 1): the Pallas distances cost
-    83 ms but the XLA ``approx_max_k``/``top_k`` over the materialized
-    [4096, 8192] f32 blocks costs 6.6+ s — the HBM round-trip of the
-    distance matrix plus a slow reduction fusion IS the build wall. This
-    kernel applies :func:`_nn_kernel_fast`'s packed-key trick per db
-    bucket instead of per query row: similarity f32 is bitcast to int32
-    (order-preserving, sim >= 0) with the low ``log2(bucket)`` mantissa
-    bits replaced by the index-in-bucket, and one integer max per bucket
-    selects winner sim AND position. The distances never leave VMEM; HBM
-    sees only int32 keys (``4*bucket``x smaller than the f32 matrix,
-    with no re-read).
-
-    Layout: everything runs TRANSPOSED — dist_T [NT, Q] puts the db axis
-    on sublanes, so the bucket reduction is a free major-dim reshape
-    [NT/bucket, bucket, QT] + max over axis 1, and the output block
-    [NT/bucket, Q] satisfies Mosaic's (8, 128) block-divisibility rule
-    (a [Q_tile, NT/bucket] orientation does not). Grid is 1-D over db
-    tiles: each tile's bytes are unpacked once and reused for every
-    query chunk (static inner loop).
-
-    Cost: ~2^-16 relative sim resolution (bucket=64) and within-bucket
-    ties resolve to the larger index."""
-    _unpack_block_bytes(db_ref, scratch, nbytes)
-    db_pops = db_pops_ref[:, :]                                # [NT, 1]
-    acc = jnp.int32 if scratch.dtype == jnp.int8 else jnp.float32
-    q_total = q_bits_ref.shape[0]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (n_tile, q_tile), 0)
-    local = (sub % bucket).astype(jnp.int32)
-    for j in range(q_total // q_tile):
-        q_bits = q_bits_ref[j * q_tile:(j + 1) * q_tile, :]
-        q_pops = q_pops_ref[:, j * q_tile:(j + 1) * q_tile]    # [1, QT]
-        inter = jax.lax.dot_general(
-            scratch[:, :], q_bits,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=acc).astype(jnp.float32)    # [NT, QT]
-        union = db_pops + q_pops - inter
-        if approx:
-            # the exact-epilogue probes (BENCHMARKS kernel table) split the
-            # epilogue cost roughly half divide / half reduction — the VPU
-            # approximate reciprocal removes the divide half. sim stays
-            # >= 0 (bitcast ordering holds); ~2^-13 relative error merely
-            # reorders near-ties among bucket winners (the selected
-            # neighbors' distances are recomputed exactly downstream).
-            sim = inter * pl.reciprocal(jnp.maximum(union, 1.0),
-                                        approx=True)
-            sim = jnp.where(union > 0, sim, 1.0)
-        else:
-            sim = jnp.where(union > 0, inter / jnp.maximum(union, 1.0), 1.0)
-        bits = jax.lax.bitcast_convert_type(sim, jnp.int32)
-        keys = (bits & ~jnp.int32(bucket - 1)) | local
-        win = jnp.max(keys.reshape(n_tile // bucket, bucket, q_tile),
-                      axis=1)                                  # [NB, QT]
-        out_ref[:, j * q_tile:(j + 1) * q_tile] = win
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("bucket", "q_tile", "n_tile",
-                                    "interpret", "compute_dtype", "approx"))
-def tanimoto_bucketmin_pallas(q_packed: jnp.ndarray, db_packed: jnp.ndarray,
-                              bucket: int = 64, q_tile: int = 512,
-                              n_tile: int = 1024, interpret: bool = False,
-                              compute_dtype=jnp.int8,
-                              approx: bool = False) -> jnp.ndarray:
-    """Distance-min winner per ``bucket`` db rows, as packed int32 keys.
-
-    Returns ``keys [Q, N/bucket]``; decode with :func:`decode_bucket_keys`.
-    Winner = max similarity within the bucket (ties -> larger index); the
-    full distance matrix is never materialized in HBM. Q % q_tile == 0,
-    N % n_tile == 0, n_tile % bucket == 0, bucket a power of two, and
-    (n_tile/bucket) % 8 == 0 unless N == n_tile (Mosaic block rule).
-
-    This is ``lax.approx_max_k``'s PartialReduce algorithm fused into the
-    distance kernel: expected candidate recall for a top-k query against N
-    columns is ~1 - k/(2*N/bucket) (birthday collisions among winners).
-
-    ``approx=True`` swaps the exact f32 divide for the VPU approximate
-    reciprocal (~2^-13 relative sim error, same order trick) — the
-    throughput epilogue of :func:`tanimoto_nn_pallas`'s fast path. Winner
-    choice can differ among near-ties; downstream consumers that need
-    exact distances must recompute them for the selected ids (the exact
-    builder does — ``_select_layer`` re-derives ``sel_d`` exactly).
-    """
-    q, w = q_packed.shape
-    n, _ = db_packed.shape
-    assert q % q_tile == 0 and n % n_tile == 0, (q, n, q_tile, n_tile)
-    assert n_tile % bucket == 0 and bucket & (bucket - 1) == 0, \
-        (n_tile, bucket)
-    # Mosaic's (8, 128) out-block divisibility rule; interpret mode is free
-    assert interpret or (n_tile // bucket) % 8 == 0 or n == n_tile, \
-        (n_tile, bucket)
-    nbytes = w * 4
-    d = w * 32
-    q_bits = unpack_bitmajor(q_packed, compute_dtype)
-    q_pops_t = popcount_rows(q_packed).astype(jnp.float32)[None, :]
-    db_pops = popcount_rows(db_packed).astype(jnp.float32)[:, None]
-    db_bytes = jax.lax.bitcast_convert_type(
-        db_packed, jnp.uint8).reshape(n, nbytes)
-
-    grid = (n // n_tile,)
-    kernel = functools.partial(_bucketmin_kernel, nbytes=nbytes,
-                               n_tile=n_tile, bucket=bucket, q_tile=q_tile,
-                               approx=approx)
-    keys_t = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((q, d), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, q), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, nbytes), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n_tile // bucket, q), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n // bucket, q), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((n_tile, d), compute_dtype)],
-        interpret=interpret,
-    )(q_bits, q_pops_t, db_bytes, db_pops)
-    return keys_t.T
-
-
-def decode_bucket_keys(keys: jnp.ndarray, bucket: int):
-    """Unpack :func:`tanimoto_bucketmin_pallas` keys -> (dist, global_id).
-
-    dist carries the kernel's truncated similarity (low log2(bucket)
-    mantissa bits zeroed — a <=2^-16 relative overestimate of distance at
-    bucket=64); ids are exact."""
-    local = keys & jnp.int32(bucket - 1)
-    sim = jax.lax.bitcast_convert_type(keys & ~jnp.int32(bucket - 1),
-                                       jnp.float32)
-    col = jnp.arange(keys.shape[-1], dtype=jnp.int32) * bucket
-    return 1.0 - sim, col + local
-
-
-def _nn_kernel_fast(q_bits_ref, q_pops_ref, db_ref, db_pops_ref,
-                    key_ref, blk_ref, scratch, *, nbytes: int, n_tile: int):
-    """Throughput epilogue: approximate reciprocal for the divide and ONE
-    packed-key max-reduction instead of min+argmin.
-
-    Similarity (not distance) is maximized; each candidate's f32 sim is
-    bitcast to int32 (order-preserving for non-negative floats) with the
-    lane index packed into the low 10 mantissa bits — a single integer max
-    then selects best sim AND its index. Costs ~2^-13 relative sim
-    resolution plus the VPU's approximate-reciprocal error; ties resolve to
-    the larger index (the exact kernel takes the first). Callers that need
-    exact distances use the default epilogue."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        key_ref[:, :] = jnp.full_like(key_ref[:, :], jnp.iinfo(jnp.int32).min)
-        blk_ref[:, :] = jnp.zeros_like(blk_ref[:, :])
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        _unpack_block_bytes(db_ref, scratch, nbytes)
-
-    acc = jnp.int32 if scratch.dtype == jnp.int8 else jnp.float32
-    inter = jax.lax.dot_general(
-        q_bits_ref[:, :], scratch[:, :],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=acc).astype(jnp.float32)      # [QT, NT]
-    union = q_pops_ref[:, :] + db_pops_ref[:, :].T - inter
-    sim = inter * pl.reciprocal(jnp.maximum(union, 1.0), approx=True)
-    sim = jnp.where(union > 0, sim, 1.0)
-    bits = jax.lax.bitcast_convert_type(sim, jnp.int32)
-    idx = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
-    keys = (bits & ~jnp.int32(n_tile - 1)) | idx
-    kmax = jnp.max(keys, axis=1, keepdims=True)              # [QT, 1]
-    better = kmax > key_ref[:, :]
-    key_ref[:, :] = jnp.where(better, kmax, key_ref[:, :])
-    blk_ref[:, :] = jnp.where(better, i, blk_ref[:, :])
-
-
-def _nn_kernel(q_bits_ref, q_pops_ref, db_ref, db_pops_ref,
-               min_ref, arg_ref, scratch, *, nbytes: int, n_tile: int):
-    i = pl.program_id(0)  # db block (outer)
-
-    @pl.when(i == 0)
-    def _():
-        min_ref[:, :] = jnp.full_like(min_ref[:, :], jnp.inf)
-        arg_ref[:, :] = jnp.full_like(arg_ref[:, :], -1)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        _unpack_block_bytes(db_ref, scratch, nbytes)
-
-    dist = _tanimoto_block(
-        q_bits_ref[:, :], q_pops_ref[:, :], scratch, db_pops_ref[:, :].T)
-    bmin = jnp.min(dist, axis=1, keepdims=True)           # [QT, 1]
-    barg = jnp.argmin(dist, axis=1)[:, None].astype(jnp.int32)
-    gid = i * n_tile + barg
-    better = bmin < min_ref[:, :]
-    min_ref[:, :] = jnp.where(better, bmin, min_ref[:, :])
-    arg_ref[:, :] = jnp.where(better, gid, arg_ref[:, :])
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("q_tile", "n_tile", "interpret",
-                                    "compute_dtype", "approx"))
-def tanimoto_nn_pallas(q_packed: jnp.ndarray, db_packed: jnp.ndarray,
-                       q_tile: int | None = None, n_tile: int | None = None,
-                       interpret: bool = False, compute_dtype=jnp.int8,
-                       approx: bool = False):
-    """1-NN by Tanimoto: returns (min_dist [Q], argmin_id [Q]).
-
-    ``approx=True`` selects the throughput epilogue (approximate
-    reciprocal + one packed-key reduction, see :func:`_nn_kernel_fast`):
-    distances carry ~1e-3 absolute error and distance ties resolve to the
-    larger id. The neighbor identity is unaffected outside ties.
-
-    ``q_tile=None`` picks the largest power-of-two divisor of Q up to
-    1024; ``n_tile=None`` the largest divisor of N up to 2048 (chained
-    tile sweep on v5e, BENCHMARKS.md: q1024×n2048 22.7 ms vs q1024×n1024
-    23.5 for the 2048×1M sweep — n_tile=2048 halves the grid's scratch
-    refills per output block)."""
-    q, w = q_packed.shape
-    n, _ = db_packed.shape
-    if q_tile is None:
-        q_tile = 8
-        while q_tile < 1024 and q % (q_tile * 2) == 0:
-            q_tile *= 2
-    if n_tile is None:
-        n_tile = 128
-        while n_tile < 2048 and n % (n_tile * 2) == 0:
-            n_tile *= 2
-    assert q % q_tile == 0 and n % n_tile == 0, (q, n, q_tile, n_tile)
-    assert n_tile & (n_tile - 1) == 0, "n_tile must be a power of two"
-    nbytes = w * 4
-    d = w * 32
-    q_bits = unpack_bitmajor(q_packed, compute_dtype)
-    q_pops = popcount_rows(q_packed).astype(jnp.float32)[:, None]
-    db_pops = popcount_rows(db_packed).astype(jnp.float32)[:, None]
-    db_bytes = jax.lax.bitcast_convert_type(
-        db_packed, jnp.uint8).reshape(n, nbytes)
-
-    grid = (n // n_tile, q // q_tile)
-    kern_fn = _nn_kernel_fast if approx else _nn_kernel
-    kernel = functools.partial(kern_fn, nbytes=nbytes, n_tile=n_tile)
-    out_a, out_b = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((q_tile, d), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((q_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, nbytes), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_tile, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((q_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((q_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((q, 1),
-                                 jnp.int32 if approx else jnp.float32),
-            jax.ShapeDtypeStruct((q, 1), jnp.int32),
-        ),
-        scratch_shapes=[pltpu.VMEM((n_tile, d), compute_dtype)],
-        interpret=interpret,
-    )(q_bits, q_pops, db_bytes, db_pops)
-    if not approx:
-        return out_a[:, 0], out_b[:, 0]
-    key, blk = out_a[:, 0], out_b[:, 0]
-    idx = key & (n_tile - 1)
-    sim = jax.lax.bitcast_convert_type(key & ~jnp.int32(n_tile - 1),
-                                       jnp.float32)
-    return 1.0 - sim, blk * n_tile + idx
+        name="tanimoto_bucketmin",
+    )(unpack_bitmajor(q_packed), popcount_rows(q_packed).astype(jnp.float32),
+      unpack_bitmajor(db_packed),
+      popcount_rows(db_packed).astype(jnp.float32))

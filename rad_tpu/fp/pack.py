@@ -6,8 +6,8 @@ with ``W = ceil(d / 32)`` — for the reference's canonical 1024-bit Morgan
 fingerprints (reference: examples/DUDEZ_example.ipynb:92-118) that is 32 words
 = 128 bytes per molecule, identical to usearch's b1 storage density.
 
-TPU has no popcount instruction; :func:`popcount` implements the SWAR
-add-shift-mask reduction on uint32, which lowers to a short VPU sequence.
+:func:`popcount` implements the SWAR add-shift-mask reduction on uint32
+with plain integer ops, so it runs on every backend.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""HNSW graph storage model (TPU-friendly padded adjacency)."""
+"""HNSW graph storage model (device-friendly padded adjacency)."""
 
 from rad_tpu.graph.storage import HNSWGraph, LayerStats
 

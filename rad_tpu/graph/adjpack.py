@@ -1,14 +1,12 @@
-"""Bit-packed adjacency rows — the single-chip scale lever past ~180M.
+"""Bit-packed adjacency rows — a single-card scale lever.
 
-The traversal engine's dominant HBM resident is the flat ``[R, M0] int32``
-neighbor table (rad_tpu.traverse.device.DeviceGraph). At 200M nodes
-(m=8, the reference README's default connectivity — reference
-README.md:47-53) that table alone is 14.63 GB of the 15.75 GB a v5e chip
-exposes, which is the measured 200M wall (BENCHMARKS.md "Single-chip
-scale ceiling"). But node ids at that scale only need 28 bits: packing 16
-neighbor fields at ``ceil(log2(N+1))`` bits each shrinks the table 12.5%
-(28-bit) to 37.5% (20-bit at ≤1M nodes) with a ~16-shift VPU decode per
-popped batch — noise next to the step's gather chain.
+The traversal engine's dominant device-memory resident is the flat
+``[R, M0] int32`` neighbor table (rad_tpu.traverse.device.DeviceGraph). At
+200M nodes (m=8, the reference README's default connectivity — reference
+README.md:47-53) that table alone is 14.63 GB. But node ids at that scale
+only need 28 bits: packing 16 neighbor fields at ``ceil(log2(N+1))`` bits
+each shrinks the table 12.5% (28-bit) to 37.5% (20-bit at ≤1M nodes) with a
+~16-shift decode per popped batch — noise next to the step's gather chain.
 
 Encoding: each field stores ``id`` as an unsigned ``bits``-wide integer;
 the all-ones value (``mask``) is the -1 (no neighbor) sentinel, so valid
@@ -19,7 +17,7 @@ crossing word boundaries where needed.
 
 The reference keeps usearch's 40-byte uncompressed neighbor slots and
 scales by CPU-mmap serving instead (reference index.html:568-580); this
-module is the TPU-side analogue for keeping the *traversal* resident.
+module is the device-side analogue for keeping the *traversal* resident.
 """
 
 from __future__ import annotations
@@ -50,12 +48,9 @@ def adj_group_for(m0: int, bits: int) -> int:
     """Rows per storage group so the grouped table's minor dim is a
     multiple of 8 uint32 words.
 
-    MEASURED (v5e, remote XLA): HBM arrays get their minor dim padded to a
-    multiple of 8 elements — a ``[R, 14]`` uint32 table is stored as
-    ``[R, 16]``, which for 28-bit fields at 200M nodes silently restores
-    the full int32 footprint (the exact arithmetic that OOM'd the first
-    200M attempt; arguments 14.118 GiB = padded-adj 13.624 + state 0.494).
-    Grouping G rows into one ``[R/G, G*W]`` super-row with ``G*W % 8 == 0``
+    A layout that pads the minor dim to a multiple of 8 elements stores a
+    ``[R, 14]`` uint32 table as ``[R, 16]``, which for 28-bit fields at
+    200M nodes restores the full int32 footprint. Grouping G rows into one ``[R/G, G*W]`` super-row with ``G*W % 8 == 0``
     stores the packed bits compact; the per-batch decode adds one
     take_along_axis over the gathered super-rows.
     """

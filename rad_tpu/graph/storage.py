@@ -1,6 +1,6 @@
 """HNSW graph storage: fixed-degree padded adjacency over packed fingerprints.
 
-TPU-native replacement for usearch's variable-degree adjacency + b1 vector
+The device-resident replacement for usearch's variable-degree adjacency + b1 vector
 store (reference: the usearch submodule, surveyed via its call sites —
 rad/hnsw_service.py:219-232, rad/hnsw_server.py:144-161). Design choices:
 
@@ -381,7 +381,7 @@ class HNSWGraph:
         return stats
 
     # ----------------------------------------------------------- fork API
-    # TPU-native equivalents of the usearch fork's graph introspection
+    # equivalents of the usearch fork's graph introspection
     # (reference rad/hnsw_service.py:219-232, examples/DUDEZ_example.ipynb:408).
     def get_neighbors(self, node_id: int, level: int) -> List[int]:
         """Adjacency of ``node_id`` at ``level`` as ``[id, key, id, key, ...]``.

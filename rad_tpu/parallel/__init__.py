@@ -1,4 +1,4 @@
-"""Multi-chip scaling: mesh construction + graph-sharded kernels over ICI."""
+"""Multi-chip scaling: mesh construction + graph-sharded kernels over NVLink."""
 
 from rad_tpu.parallel.mesh import make_mesh
 from rad_tpu.parallel.sharded import (

@@ -3,9 +3,9 @@
 The reference scales by adding scoring workers against one shared Redis
 (README.md:120-129) — the library itself never shards. Here the *graph* is
 the partitioned dimension (SURVEY.md §5 long-axis mapping): fingerprints and
-adjacency rows are sharded across chips over ICI, while the (small) frontier
+adjacency rows are sharded across cards over NVLink, while the (small) frontier
 and counters are replicated, so a 2B×128B fingerprint matrix (256 GB) spreads
-across a pod of 16 GB-HBM chips.
+across the cards of a host.
 """
 
 from __future__ import annotations

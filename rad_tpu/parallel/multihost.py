@@ -1,13 +1,13 @@
-"""Multi-host (DCN) initialization for pod-slice deployments.
+"""Multi-host initialization for deployments across several machines.
 
-Single-host multi-chip needs nothing beyond :func:`rad_tpu.parallel.make_mesh`.
+Single-host multi-card needs nothing beyond :func:`rad_tpu.parallel.make_mesh`.
 Across hosts, JAX's distributed runtime must be initialized before any mesh
-is built; this wraps ``jax.distributed.initialize`` with the env-driven
-defaults TPU pods provide, and builds the global mesh over all connected
-processes' devices. The graph-sharded kernels (rad_tpu.parallel.sharded)
-work unchanged: per-step collectives ride ICI within a slice and DCN across
-slices, and the coordination/HTTP layer (rad_tpu.server) remains the
-scoring-worker fan-out channel exactly as in single-host mode.
+is built; this wraps ``jax.distributed.initialize`` and builds the global
+mesh over all connected processes' devices. The graph-sharded kernels
+(rad_tpu.parallel.sharded) work unchanged: per-step collectives ride NVLink
+within a host and the network across hosts, and the coordination/HTTP
+layer (rad_tpu.server) remains the scoring-worker fan-out channel exactly
+as in single-host mode.
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed (idempotent). On TPU pods all arguments
-    are discovered from the environment; pass them explicitly for CPU/GPU
-    fleets."""
+    """Initialize jax.distributed (idempotent). Arguments left None are
+    discovered only from a cluster environment JAX recognises (such as
+    SLURM); elsewhere pass ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id`` explicitly."""
     import jax
 
     try:

@@ -3,7 +3,7 @@
 The dense alternative — a ``[B, N]`` bool map per query batch — is exact but
 caps scale: 512 queries over a 100M-node library is ~51 GB of bools. This
 module replaces it with an open-addressed hash table of the *ids actually
-visited* (``[H] int32`` per query, H independent of N), the TPU analogue of
+visited* (``[H] int32`` per query, H independent of N), the device analogue of
 usearch's reusable visited pools (in-repo prior art:
 rad_tpu/native/hnsw_builder.cpp VisitedPool).
 

@@ -19,7 +19,7 @@ deployment story anyway.
 
 Beyond parity, the server optionally exposes the *coordination* API
 (``/coordination/...``) so scoring workers on other machines can join a
-traversal over plain HTTP — the TPU-era replacement for the reference's
+traversal over plain HTTP — the replacement for the reference's
 "share one Redis" multi-node recipe (README.md:120-129).
 """
 
@@ -176,7 +176,7 @@ class HNSWServerApp:
  border-bottom: 1px solid #ddd; text-align: left; }}
 </style></head><body>
 <h1>{self.server_name}</h1>
-<p>A TPU-native retrieval-augmented-screening index service: an HNSW
+<p>A retrieval-augmented-screening index service: an HNSW
 graph over packed binary molecular fingerprints with a Tanimoto metric,
 traversed best-first by docking (or ML) score so that only a small
 fraction of an ultra-large library ever needs scoring.</p>
@@ -218,7 +218,7 @@ drop-in for the local service in any <code>RADTraverser</code>.</p>
                                  "__path__": "index.html"}
                 return 200, {
                     "service": self.server_name,
-                    "description": "TPU-native HNSW index service "
+                    "description": "HNSW index service "
                                    "(rad_tpu)",
                     "endpoints": ["/ping", "/health", "/info",
                                   "/neighbors/{node_id}/{level}",

@@ -4,7 +4,7 @@ The reference isolates its HNSW index in a *child process* with
 multiprocessing.Queue IPC (rad/hnsw_service.py:81-452) because the usearch
 C++ index lives in one process's heap and blocks the GIL. Neither constraint
 exists here: the graph is JAX/numpy arrays (HBM- or host-resident) and
-adjacency queries are array gathers, so the TPU-native local service is a
+adjacency queries are array gathers, so the device-resident local service is a
 thin, lock-free in-process adapter. The request/metrics surface (timeouts,
 request counters, ``get_service_info``) is preserved so local and remote
 services stay interchangeable.

@@ -1,8 +1,9 @@
 """RemoteHNSWService: HTTP client to a rad_tpu (or compatible) index server.
 
-Parity with the reference client (rad/hnsw_service.py:455-758): pooled
-``requests.Session``, retry with exponential backoff on 429/5xx, Bearer
-auth, ``X-Correlation-ID`` request headers, and cached health checks. Also
+Parity with the reference client (rad/hnsw_service.py:455-758): retry with
+exponential backoff on 429/5xx and connection errors, Bearer auth,
+``X-Correlation-ID`` request headers, and cached health checks, on the
+standard library's ``urllib`` (no third-party HTTP client). Also
 provides :class:`RemoteCoordinationClient`, which lets a
 :class:`rad_tpu.traverse.workers.ScoringWorker` on another machine join a
 traversal through the server's ``/coordination`` endpoints — the HTTP
@@ -11,12 +12,13 @@ replacement for the reference's shared-Redis worker fan-out.
 
 from __future__ import annotations
 
+import json
 import logging
 import time
+import urllib.error
+import urllib.request
 import uuid
 from typing import List, Optional
-
-import requests
 
 from rad_tpu.service.base import HNSWService
 from rad_tpu.traverse.coordinator import WorkItem
@@ -28,6 +30,10 @@ __all__ = ["RemoteHNSWService", "RemoteCoordinationClient"]
 _RETRY_STATUSES = {429, 500, 502, 503, 504}
 
 
+class _RetryableStatus(Exception):
+    """A 429/5xx answer: retried like a connection error."""
+
+
 class RemoteHNSWService(HNSWService):
     def __init__(
         self,
@@ -36,7 +42,6 @@ class RemoteHNSWService(HNSWService):
         timeout: float = 30.0,
         max_retries: int = 3,
         backoff_factor: float = 0.3,
-        pool_connections: int = 10,
         health_cache_seconds: float = 5.0,
         service_name: str = "remote",
     ) -> None:
@@ -47,14 +52,6 @@ class RemoteHNSWService(HNSWService):
         self.backoff_factor = backoff_factor
         self.service_name = service_name
         self.health_cache_seconds = health_cache_seconds
-        self._session = requests.Session()
-        adapter = requests.adapters.HTTPAdapter(
-            pool_connections=pool_connections,
-            pool_maxsize=pool_connections)
-        self._session.mount("http://", adapter)
-        self._session.mount("https://", adapter)
-        if api_key:
-            self._session.headers["Authorization"] = f"Bearer {api_key}"
         self._shutdown = False
         self._started_at = time.time()
         self._request_count = 0
@@ -67,30 +64,37 @@ class RemoteHNSWService(HNSWService):
         if self._shutdown:
             raise RuntimeError("service has been shut down")
         url = f"{self.base_url}{path}"
-        headers = {"X-Correlation-ID": str(uuid.uuid4())}
+        headers = {"X-Correlation-ID": str(uuid.uuid4()),
+                   "Accept": "application/json"}
+        if self.api_key:
+            headers["Authorization"] = f"Bearer {self.api_key}"
+        data = None
+        if json_body is not None:
+            data = json.dumps(json_body).encode()
+            headers["Content-Type"] = "application/json"
         last_exc: Exception | None = None
         for attempt in range(self.max_retries + 1):
             try:
                 self._request_count += 1
-                resp = self._session.request(
-                    method, url, json=json_body, headers=headers,
-                    timeout=self.timeout)
-                if resp.status_code in _RETRY_STATUSES:
-                    raise requests.HTTPError(
-                        f"{resp.status_code} from {url}", response=resp)
-                if resp.status_code >= 400:
+                req = urllib.request.Request(url, data=data, headers=headers,
+                                             method=method)
+                try:
+                    with urllib.request.urlopen(req,
+                                                timeout=self.timeout) as resp:
+                        return json.loads(resp.read())
+                except urllib.error.HTTPError as e:
+                    if e.code in _RETRY_STATUSES:
+                        raise _RetryableStatus(f"{e.code} from {url}") from e
                     self._error_count += 1
-                    detail = ""
                     try:
-                        detail = resp.json().get("detail", "")
-                    except Exception:
-                        pass
+                        detail = json.loads(e.read()).get("detail", "")
+                    except (ValueError, AttributeError):
+                        detail = ""
                     raise ValueError(
-                        f"HTTP {resp.status_code} for {path}: {detail}")
-                return resp.json()
-            except ValueError:
-                raise
-            except Exception as e:  # connection errors + retryable statuses
+                        f"HTTP {e.code} for {path}: {detail}") from None
+            except (OSError, _RetryableStatus) as e:
+                # connection errors and timeouts (OSError, which includes
+                # urllib.error.URLError) and retryable statuses
                 last_exc = e
                 self._error_count += 1
                 if attempt < self.max_retries:
@@ -125,7 +129,6 @@ class RemoteHNSWService(HNSWService):
 
     def shutdown(self) -> None:
         self._shutdown = True
-        self._session.close()
 
     def get_service_info(self) -> dict:
         return {

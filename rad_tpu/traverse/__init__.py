@@ -2,7 +2,7 @@
 
 Two interchangeable engines with identical semantics (SURVEY.md §0):
 
-* :mod:`rad_tpu.traverse.device` — the TPU-native engine: frontier heap,
+* :mod:`rad_tpu.traverse.device` — the device engine: frontier heap,
   per-level visited bitset, and scored log live in HBM and one jitted step
   performs pop→expand→dedupe→integrate atomically *by construction*
   (replaces the reference's Redis+Lua arbitration, rad/priority_queue.py:22-39

@@ -11,11 +11,10 @@ Semantics identical to the stepwise engine (same expand/integrate impls).
 Termination inside the loop: n_to_score reached, frontier empty, or step
 budget exhausted.
 
-Deployment caveat: io_callback requires the Python host to be co-located
-with the device runtime (standard TPU VMs). Remote-execution backends that
-tunnel computations to a detached device cannot service host callbacks —
-use the stepwise/pipelined :class:`rad_tpu.traverse.driver.DeviceTraverser`
-there (it only ever ships arrays, never callbacks).
+Deployment note: io_callback needs the Python host co-located with the
+device runtime, as a GPU's host is. The stepwise/pipelined
+:class:`rad_tpu.traverse.driver.DeviceTraverser` only ever ships arrays,
+never callbacks, for runtimes that cannot serve them.
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ class DeviceTraverser:
         # traversal bit-for-bit, ~bits/32 of the adjacency HBM. Packing
         # happens host-side inside prepare_device_graph, so the int32
         # table never touches the device — the single-chip option for
-        # graphs past the int32 HBM ceiling (~180M nodes, BENCHMARKS.md).
+        # graphs past the int32 device-memory ceiling.
         self.dg = dev.prepare_device_graph(
             graph, packed_adjacency=packed_adjacency)
         self.state = dev.init_state(self.dg, frontier_capacity, log_capacity,

@@ -10,7 +10,7 @@ insertion order survives while device memory stays O(log_capacity).
 
 Reference parity: the reference's insertion order lives in a Redis LIST
 that grows without bound on the Redis host (rad/scored.py insertion-order
-LIST; SURVEY.md §0) — this is the TPU-native analogue, with an optional
+LIST; SURVEY.md §0) — this is the device-resident analogue, with an optional
 disk spill (raw little-endian int32 appends) for orders too large for host
 RAM, readable back as a zero-copy memmap.
 """

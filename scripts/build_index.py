@@ -56,6 +56,10 @@ def main(argv=None) -> int:
     ap.add_argument("--debug", action="store_true")
     args = ap.parse_args(argv)
 
+    from rad_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     logging.basicConfig(
         level=logging.DEBUG if args.debug else logging.INFO,
         format="%(asctime)s %(levelname)s: %(message)s")

@@ -69,6 +69,9 @@ def main(argv=None) -> int:
     from rad_tpu.graph.storage import HNSWGraph
     from rad_tpu.server.http_server import run_hnsw_server
     from rad_tpu.store.smiles_store import SQLiteSmilesStore
+    from rad_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.hnsw_path:
         log.info("loading index from %s (mmap=%s)", args.hnsw_path,

@@ -3,7 +3,7 @@ from setuptools import find_packages, setup
 setup(
     name="rad-tpu",
     version="0.3.0",
-    description=("TPU-native retrieval-augmented docking: HNSW over packed "
+    description=("Retrieval-augmented docking on the GPU: HNSW over packed "
                  "molecular fingerprints with score-guided traversal "
                  "(JAX/XLA/Pallas)"),
     long_description=open("README.md").read(),
@@ -14,7 +14,6 @@ setup(
     install_requires=[
         "jax",
         "numpy",
-        "requests",
     ],
     extras_require={
         "test": ["pytest"],

@@ -1,9 +1,8 @@
 """Bit-packed adjacency (rad_tpu.graph.adjpack): encoding roundtrip and
 engine bit-identity with the int32 table.
 
-The packed table is the single-chip scale lever past ~180M nodes
-(BENCHMARKS.md scale ceiling): same traversal, 12.5-37.5% less adjacency
-HBM. Correctness bar: unpack(pack(x)) == x for every field width, and the
+The packed table is a single-card scale lever: same traversal,
+12.5-37.5% less adjacency memory. Correctness bar: unpack(pack(x)) == x for every field width, and the
 device engine over a packed DeviceGraph reproduces the int32 engine's
 scored set, scores, and discovery order EXACTLY.
 """

@@ -111,9 +111,9 @@ def test_probed_allpairs_all_probes_matches_exact(fps):
     k, qb, csz = 32, 256, 256
     c = n // csz
     d_ex, i_ex = ex._allpairs_topk(packed_l, n, k, qb, csz,
-                                   use_pallas=False, approx_recall=None)
+                                   impl="swar", approx_recall=None)
     d_pr, i_pr = ex._allpairs_topk_probed(
-        packed_l, n, k, qb, csz, use_pallas=False, approx_recall=None,
+        packed_l, n, k, qb, csz, impl="swar", approx_recall=None,
         bucket=None, interpret=False, probes=c, probe_sample=8, seed=0,
         pairs_per_dispatch=ex.PAIRS_PER_DISPATCH)
     np.testing.assert_allclose(np.asarray(d_pr), np.asarray(d_ex),
@@ -138,7 +138,7 @@ def test_probed_allpairs_candidate_recall(fps):
 
     def cand_recall(p):
         d_pr, i_pr = ex._allpairs_topk_probed(
-            packed_l, n, k, qb, csz, use_pallas=False,
+            packed_l, n, k, qb, csz, impl="swar",
             approx_recall=None, bucket=None, interpret=False, probes=p,
             probe_sample=8, seed=0,
             pairs_per_dispatch=ex.PAIRS_PER_DISPATCH)
@@ -287,7 +287,7 @@ def test_qblock_granularity_candidate_recall_not_worse(fps):
 
     def cand_recall(gran, p):
         _, i_pr = ex._allpairs_topk_probed(
-            packed_l, n, k, qb, csz, use_pallas=False,
+            packed_l, n, k, qb, csz, impl="swar",
             approx_recall=None, bucket=None, interpret=False, probes=p,
             probe_sample=8, seed=0,
             pairs_per_dispatch=ex.PAIRS_PER_DISPATCH,

@@ -1,6 +1,6 @@
 """Dependency-free chemistry: SMILES parser + Morgan/ECFP fingerprints.
 
-The real-chemistry validation path (VERDICT r2 item #6): fingerprints
+The real-chemistry validation path: fingerprints
 must be structural (SMILES-writing-order invariant), chemically sane
 (similar structures -> high Tanimoto), and batch-packable into the
 library build format.
@@ -124,7 +124,7 @@ def test_packed_batch():
 
 
 # ---------------------------------------------------------------------------
-# Golden ECFP invariants (VERDICT r3 item 7): the exact Rogers & Hahn 2010 §2
+# Golden ECFP invariants: the exact Rogers & Hahn 2010 §2
 # invariant tuples feeding the hash, hand-computed for known molecules. This
 # is the executable specification standing in for an RDKit bit-for-bit
 # comparison (impossible in this offline container): if these tuples are
@@ -220,7 +220,7 @@ KEKULE_PAIRS = [
 
 def test_kekulized_equals_aromatic():
     """Aromatic-written and kekulized SMILES of the same ring system must
-    fingerprint identically (RDKit re-perceives aromaticity; VERDICT r3
+    fingerprint identically (RDKit re-perceives aromaticity;
     item 7 asks for the same invariance here)."""
     for name, arom, kek in KEKULE_PAIRS:
         fa, fk = morgan_fingerprint(arom), morgan_fingerprint(kek)

@@ -11,6 +11,14 @@ SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 sys.path.insert(0, str(SCRIPTS))
 
 
+@pytest.fixture(autouse=True)
+def _no_compile_cache(monkeypatch):
+    """The scripts turn on JAX's persistent compile cache; run in this test
+    process, they would turn it on for every later test too."""
+    monkeypatch.setattr("rad_tpu.utils.compile_cache.enable_compile_cache",
+                        lambda: "")
+
+
 def test_build_index_cli_end_to_end(tmp_path):
     import build_index
 

@@ -40,8 +40,8 @@ def test_dudez_workflow_headline(tmp_path):
 @pytest.mark.slow
 def test_dudez_workflow_morgan_chemistry(tmp_path):
     """Real-chemistry mode: combinatorial drug-like SMILES + in-tree
-    Morgan/ECFP fingerprints reproduce the enrichment behavior (VERDICT r2
-    item #6 — the non-proxy validation path)."""
+    Morgan/ECFP fingerprints reproduce the enrichment behavior (the
+    non-proxy validation path)."""
     out = tmp_path / "dudez_morgan.json"
     env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
                XLA_FLAGS="")

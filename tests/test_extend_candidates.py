@@ -1,8 +1,7 @@
 """extend_candidates flag (HNSW paper Algorithm 4 candidate extension).
 
-Measured at 6k uniform-random 1024-bit (BENCHMARKS.md): no recall change
-(0.761 vs 0.763 @ ef=128) at +35% build cost — consistent with the paper's
-note that extension only matters for extremely clustered data. The flag is
+The paper notes that extension only matters for extremely clustered
+data. The flag is
 kept for parity with the published algorithm; these tests pin that it
 produces a valid graph with recall no worse than the default.
 """

@@ -1,12 +1,23 @@
-"""Pallas Tanimoto kernel correctness (interpret mode on CPU)."""
+"""Tanimoto kernels and their references.
+
+The Pallas-Triton bucket-min kernel runs here in the Pallas interpreter
+and must give keys bit-equal to the plain XLA form (SWAR and int8) and to
+a NumPy model. Its compiled form runs only on the card (``gpu`` tests)."""
+
+import functools
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from rad_tpu.fp import random_fingerprints, tanimoto_matrix
-from rad_tpu.fp.kernels import tanimoto_matrix_pallas, tanimoto_nn_pallas
+from rad_tpu.fp.kernels import tanimoto_bucketmin
+from rad_tpu.fp.pack import popcount_rows_np
+from rad_tpu.fp.tanimoto import (bucket_keys, decode_bucket_keys,
+                                 tanimoto_matrix_int8, tanimoto_similarity,
+                                 tanimoto_similarity_int8, unpack_bitmajor)
 
 
 @pytest.fixture(scope="module")
@@ -16,61 +27,12 @@ def data():
     return jnp.asarray(q), jnp.asarray(db)
 
 
-@pytest.mark.slow
-def test_matrix_kernel_matches_swar(data):
-    q, db = data
-    ref = np.asarray(tanimoto_matrix(q, db))
-    out = np.asarray(tanimoto_matrix_pallas(q, db, q_tile=128, n_tile=256,
-                                            interpret=True))
-    np.testing.assert_allclose(out, ref, atol=1e-5)
-
-
-def test_nn_kernel_matches_bruteforce(data):
-    q, db = data
-    ref = np.asarray(tanimoto_matrix(q, db))
-    ref_min = ref.min(axis=1)
-    ref_arg = ref.argmin(axis=1)
-    d, ids = tanimoto_nn_pallas(q, db, q_tile=128, n_tile=256,
-                                interpret=True)
-    d, ids = np.asarray(d), np.asarray(ids)
-    np.testing.assert_allclose(d, ref_min, atol=1e-5)
-    # argmin may differ only on exact ties
-    tie_free = ref_min != np.partition(ref, 1, axis=1)[:, 1]
-    np.testing.assert_array_equal(ids[tie_free], ref_arg[tie_free])
-
-
-def test_nn_kernel_self_query(data):
-    q, db = data
-    d, ids = tanimoto_nn_pallas(db[:128], db, q_tile=128, n_tile=256,
-                                interpret=True)
-    np.testing.assert_allclose(np.asarray(d), 0.0, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(ids), np.arange(128))
-
-
-def test_nn_kernel_approx_epilogue(data):
-    """Fast epilogue (approx reciprocal + packed-key argmax): distances
-    within ~1e-3 of exact, neighbor identity exact outside ties."""
-    q, db = data
-    ref = np.asarray(tanimoto_matrix(q, db))
-    ref_min = ref.min(axis=1)
-    d, ids = tanimoto_nn_pallas(q, db, q_tile=128, n_tile=256,
-                                interpret=True, approx=True)
-    d, ids = np.asarray(d), np.asarray(ids)
-    np.testing.assert_allclose(d, ref_min, atol=2e-3)
-    # the chosen neighbor's true distance equals the true min (modulo ties)
-    chosen = ref[np.arange(ref.shape[0]), ids]
-    np.testing.assert_allclose(chosen, ref_min, atol=2e-3)
-
-
 def _ref_bucket_keys(q, db, bucket):
-    """Numpy model of the packed-key bucket reduction.
-
-    Similarity is computed DIRECTLY (inter/union in f32) as the kernel
-    does — deriving it as 1-(1-s) from the distance matrix double-rounds
-    and differs by 1 ULP on some entries."""
+    """NumPy model of the packed-key bucket reduction, with IEEE f32
+    division of the exact counts."""
     qb = np.unpackbits(np.asarray(q).view(np.uint8), axis=1)
     dbb = np.unpackbits(np.asarray(db).view(np.uint8), axis=1)
-    inter = (qb @ dbb.T).astype(np.float32)
+    inter = (qb.astype(np.float32) @ dbb.T.astype(np.float32))
     union = qb.sum(1, dtype=np.float32)[:, None] + \
         dbb.sum(1, dtype=np.float32)[None, :] - inter
     sim = np.where(union > 0, inter / np.maximum(union, 1.0),
@@ -81,65 +43,168 @@ def _ref_bucket_keys(q, db, bucket):
     return keys.reshape(sim.shape[0], -1, bucket).max(axis=2)
 
 
+def _kernel(q, db, bucket):
+    return np.asarray(tanimoto_bucketmin(q, db, bucket=bucket,
+                                         interpret=True))
+
+
+@pytest.mark.parametrize("n_bits,nq,n,bucket", [
+    (256, 256, 1024, 64),
+    (256, 128, 512, 32),
+    (1024, 64, 256, 64),
+    (1024, 128, 256, 128),
+    (64, 32, 128, 16),
+    (512, 16, 64, 64),
+])
+def test_bucketmin_kernel_matches_references(n_bits, nq, n, bucket):
+    """Keys bit-equal to the XLA forms (SWAR and int8 blocks, then
+    reshape-max) and to the NumPy model, across widths (64 bits pads the
+    feature axis), tile-sized and smaller shapes, and buckets."""
+    q = jnp.asarray(random_fingerprints(nq, n_bits, 0.12, seed=n_bits + 1))
+    db = jnp.asarray(random_fingerprints(n, n_bits, 0.12, seed=n_bits + 2))
+    keys = _kernel(q, db, bucket)
+    assert keys.shape == (nq, n // bucket)
+    np.testing.assert_array_equal(
+        keys, np.asarray(bucket_keys(tanimoto_similarity(q, db), bucket)))
+    np.testing.assert_array_equal(
+        keys, np.asarray(bucket_keys(tanimoto_similarity_int8(q, db),
+                                     bucket)))
+    np.testing.assert_array_equal(keys, _ref_bucket_keys(q, db, bucket))
+
+
+def test_bucketmin_empty_rows():
+    """All-zero rows: an empty query against an empty row is similarity 1
+    (union 0), against anything else 0 — the shared convention."""
+    db = random_fingerprints(256, 256, 0.15, seed=3)
+    db[5] = 0
+    db[200] = 0
+    q = random_fingerprints(64, 256, 0.15, seed=4)
+    q[0] = 0
+    q, db = jnp.asarray(q), jnp.asarray(db)
+    keys = _kernel(q, db, 64)
+    np.testing.assert_array_equal(
+        keys, np.asarray(bucket_keys(tanimoto_similarity(q, db), 64)))
+    d, col = decode_bucket_keys(jnp.asarray(keys), 64)
+    assert np.asarray(col)[0, 0] == 5 and float(np.asarray(d)[0, 0]) == 0.0
+
+
 def test_bucketmin_kernel_matches_model(data):
-    from rad_tpu.fp.kernels import (decode_bucket_keys,
-                                    tanimoto_bucketmin_pallas)
     q, db = data
     ref = np.asarray(tanimoto_matrix(q, db))
     for bucket in (32, 64):
-        keys = np.asarray(tanimoto_bucketmin_pallas(
-            q, db, bucket=bucket, q_tile=128, n_tile=256, interpret=True))
+        keys = _kernel(q, db, bucket)
         np.testing.assert_array_equal(keys, _ref_bucket_keys(q, db, bucket))
         d, gid = decode_bucket_keys(jnp.asarray(keys), bucket)
         d, gid = np.asarray(d), np.asarray(gid)
-        # ids exact; decoded distance = truncated-sim (<= 2^-log2(bucket)
-        # mantissa loss), never below the true winner distance
-        col = np.arange(keys.shape[1]) * bucket
-        win = ref.reshape(ref.shape[0], -1, bucket).argmin(axis=2)
-        # ties: the kernel takes the LARGER index of equal-sim entries
+        # ids exact; the decoded distance is the truncated similarity's,
+        # never below the true winner distance and at most one key step
+        # above it
         bucket_d = ref.reshape(ref.shape[0], -1, bucket).min(axis=2)
         chosen_d = ref[np.arange(ref.shape[0])[:, None], gid]
         np.testing.assert_allclose(chosen_d, bucket_d, atol=1e-6)
         assert (d >= chosen_d - 1e-6).all()
         assert (d <= chosen_d + 2.0 ** -14).all()
-        del win, col
-
-
-def test_bucketmin_approx_epilogue(data):
-    """approx=True (VPU reciprocal epilogue): winner ids land on a
-    near-minimal bucket entry (within ~2^-13 relative sim), decoded
-    distances track the true bucket minimum."""
-    from rad_tpu.fp.kernels import (decode_bucket_keys,
-                                    tanimoto_bucketmin_pallas)
-    q, db = data
-    ref = np.asarray(tanimoto_matrix(q, db))
-    bucket = 64
-    keys = tanimoto_bucketmin_pallas(q, db, bucket=bucket, q_tile=128,
-                                     n_tile=256, interpret=True,
-                                     approx=True)
-    d, gid = decode_bucket_keys(keys, bucket)
-    d, gid = np.asarray(d), np.asarray(gid)
-    bucket_d = ref.reshape(ref.shape[0], -1, bucket).min(axis=2)
-    chosen_d = ref[np.arange(ref.shape[0])[:, None], gid]
-    # the chosen entry's TRUE distance is within approx-reciprocal noise
-    # of the bucket minimum, and the decoded key distance tracks it
-    np.testing.assert_allclose(chosen_d, bucket_d, atol=2e-3)
-    np.testing.assert_allclose(d, chosen_d, atol=2e-3)
-    # ids stay in-bucket
-    col = np.arange(keys.shape[1]) * bucket
-    assert ((gid >= col) & (gid < col + bucket)).all()
 
 
 def test_bucketmin_self_query(data):
-    """Self rows win their own bucket at distance ~0 with exact identity."""
-    from rad_tpu.fp.kernels import (decode_bucket_keys,
-                                    tanimoto_bucketmin_pallas)
+    """Self rows win their own bucket at distance 0 with exact identity."""
     _, db = data
-    keys = tanimoto_bucketmin_pallas(db[:128], db, bucket=64, q_tile=128,
-                                     n_tile=256, interpret=True)
-    d, gid = decode_bucket_keys(keys, 64)
+    keys = _kernel(db[:128], db, 64)
+    d, gid = decode_bucket_keys(jnp.asarray(keys), 64)
     d, gid = np.asarray(d), np.asarray(gid)
     rows = np.arange(128)
     own = rows // 64  # bucket containing the self column
     assert (gid[rows, own] == rows).all()
     np.testing.assert_allclose(d[rows, own], 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("nq,n,bucket", [(64, 256, 48), (60, 256, 64)])
+def test_bucketmin_rejects_bad_tiling(nq, n, bucket):
+    q = jnp.asarray(random_fingerprints(nq, 256, 0.1, seed=1))
+    db = jnp.asarray(random_fingerprints(n, 256, 0.1, seed=2))
+    with pytest.raises(ValueError, match="tile"):
+        tanimoto_bucketmin(q, db, bucket=bucket, interpret=True)
+
+
+@pytest.mark.parametrize("n_bits", [64, 256, 1024])
+def test_int8_block_matches_swar(n_bits):
+    """The int8 XLA distance block is bit-equal to the SWAR reference."""
+    q = jnp.asarray(random_fingerprints(48, n_bits, 0.12, seed=5))
+    db = jnp.asarray(random_fingerprints(300, n_bits, 0.12, seed=6))
+    np.testing.assert_array_equal(np.asarray(tanimoto_matrix_int8(q, db)),
+                                  np.asarray(tanimoto_matrix(q, db)))
+
+
+def test_int8_similarity_bitwise(data):
+    q, db = data
+    a = np.asarray(tanimoto_similarity_int8(q, db)).view(np.int32)
+    b = np.asarray(tanimoto_similarity(q, db)).view(np.int32)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_unpack_bitmajor_dot_is_intersection(data):
+    """Any fixed feature order leaves dot products unchanged: the int8
+    product of bit-major rows is the AND popcount."""
+    q, db = data
+    qb = np.asarray(unpack_bitmajor(q[:16]), np.int32)
+    dbb = np.asarray(unpack_bitmajor(db[:40]), np.int32)
+    want = np.array([[popcount_rows_np(np.asarray(a & b)) for b in db[:40]]
+                     for a in q[:16]])
+    np.testing.assert_array_equal(qb @ dbb.T, want)
+    np.testing.assert_array_equal(qb.sum(1), popcount_rows_np(q[:16]))
+
+
+def test_unpack_bitmajor_layout():
+    """Feature ``b * (W*4) + byte`` is bit ``b`` of byte ``byte``."""
+    w = 2
+    packed = np.zeros((1, w), np.uint32)
+    packed[0, 1] = 1 << 19          # byte 6 (word 1, byte 2), bit 3
+    bits = np.asarray(unpack_bitmajor(jnp.asarray(packed)))[0]
+    assert bits.dtype == np.int8 and bits.sum() == 1
+    assert np.flatnonzero(bits)[0] == 3 * (w * 4) + 6
+
+
+def test_decode_bucket_keys():
+    sim = np.float32(0.75)
+    key = (np.array([sim]).view(np.int32) & ~np.int32(63)) | 5
+    d, col = decode_bucket_keys(jnp.asarray(np.tile(key, (1, 3))), 64)
+    np.testing.assert_array_equal(np.asarray(col)[0], [5, 69, 133])
+    np.testing.assert_allclose(np.asarray(d)[0], 0.25, atol=2.0 ** -17)
+
+
+@pytest.mark.gpu
+def test_div_rn_exhaustive_on_gpu(gpu):
+    """The kernel's division sequence equals IEEE f32 division for every
+    0 <= a <= b <= 4096 (all unions of fingerprints up to 2048 bits)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    from rad_tpu.fp.kernels import _div_rn
+
+    bmax = 4096
+    b = np.repeat(np.arange(1, bmax + 1), np.arange(2, bmax + 2))
+    a = np.concatenate([np.arange(0, k + 1) for k in range(1, bmax + 1)])
+    pad = -len(a) % 1024
+    a = np.concatenate([a, np.zeros(pad)]).astype(np.float32)
+    b = np.concatenate([b, np.ones(pad)]).astype(np.float32)
+
+    def kernel(a_ref, b_ref, o_ref):
+        o_ref[...] = _div_rn(a_ref[...], b_ref[...], False)
+
+    f = pl.pallas_call(
+        kernel, grid=(len(a) // 1024,),
+        in_specs=[pl.BlockSpec((1024,), lambda i: (i,))] * 2,
+        out_specs=pl.BlockSpec((1024,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct(a.shape, jnp.float32),
+        compiler_params=plt.CompilerParams(num_warps=4))
+    out = np.asarray(jax.jit(f)(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(out.view(np.int32),
+                                  (a / b).astype(np.float32).view(np.int32))
+
+
+@pytest.mark.gpu
+def test_bucketmin_compiled_matches_model_on_gpu(gpu, data):
+    q, db = data
+    keys = np.asarray(jax.jit(functools.partial(
+        tanimoto_bucketmin, bucket=64))(q, db))
+    np.testing.assert_array_equal(keys, _ref_bucket_keys(q, db, 64))

@@ -1,4 +1,4 @@
-"""16- and 32-virtual-device dryruns (VERDICT r2 item #3).
+"""16- and 32-virtual-device dryruns.
 
 The in-suite mesh is fixed at 8 CPU devices (conftest); wider meshes need
 a fresh interpreter with their own xla_force_host_platform_device_count,

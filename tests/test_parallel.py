@@ -394,7 +394,7 @@ def test_traffic_counters_fully_sharded(mesh, built):
 def test_multi_campaign_pod_matches_solo_pod(mesh, built):
     """Multi-campaign x pod composition: each vmapped campaign over the
     sharded graph ends bit-identical to its own solo sharded run at the
-    same budget (the CLAUDE.md open item)."""
+    same budget."""
     from rad_tpu.parallel.sharded import make_sharded_step_multi
     from rad_tpu.traverse.multi import (campaign_state, init_multi,
                                         multi_active_mask, prime_multi)

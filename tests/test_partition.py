@@ -150,7 +150,7 @@ def test_partitioned_custom_keys(fps):
 
 @pytest.mark.slow
 def test_partitioned_exact_builder(fps):
-    """builder='exact' (the MXU all-pairs shard builder): valid stitched
+    """builder='exact' (the all-pairs shard builder): valid stitched
     graph at recall parity with the host-built partition."""
     g = build_hnsw_partitioned(fps, n_shards=N_SHARDS, connectivity=8,
                                expansion_add=48, seed=3, builder="exact")

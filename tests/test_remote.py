@@ -361,3 +361,50 @@ def test_info_caches_smiles_db_size(server, store):
     app._smiles_db_size = size1 + 123  # detect a recount
     with urlopen(f"{url}/info", timeout=10) as r:
         assert json.loads(r.read())["smiles_db_size"] == size1 + 123
+
+
+@pytest.mark.parametrize("status", [429, 503])
+def test_client_retries_throttling_and_server_errors(status):
+    """429 and 5xx answers are retried with backoff; the request then
+    succeeds on the first good answer, with auth and body sent each try."""
+    import json
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen = []
+
+    class Flaky(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(
+                int(self.headers["Content-Length"])))
+            seen.append((self.headers.get("Authorization"), body))
+            code = status if len(seen) < 3 else 200
+            payload = json.dumps({"ok": code == 200}).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Flaky)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        svc = RemoteHNSWService(f"http://127.0.0.1:{srv.server_address[1]}",
+                                api_key="k", max_retries=3,
+                                backoff_factor=0.01)
+        out = svc._request("POST", "/x", {"a": 1})
+        assert out == {"ok": True}
+        assert seen == [("Bearer k", {"a": 1})] * 3
+        assert svc._error_count == 2
+        # out of retries: a ConnectionError names the last status
+        seen.clear()
+        svc.max_retries = 1
+        with pytest.raises(ConnectionError, match=str(status)):
+            svc._request("POST", "/x", {"a": 1})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=10)

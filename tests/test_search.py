@@ -72,7 +72,7 @@ def test_prefix_filter_recall_and_degenerate_equivalence():
     keep-quarter screen stays within a small recall delta of baseline."""
     # clustered analog-series library: the regime the screen is for (on
     # uniform-random bits the prefix estimate is distance-concentration
-    # noise and the filter costs recall — documented in BENCHMARKS.md)
+    # noise and the filter costs recall)
     import os
     import sys
     sys.path.insert(0, os.path.join(
